@@ -1,7 +1,7 @@
 // CPU reference implementation of the sketch distance inner loop, used as
 // the benchmark baseline (stand-in for pp-sketchlib's CPU path, which is an
 // external dependency not available in this environment). Implements the
-// same computation as the Pallas TPU kernel: per (query, ref, k) popcount of
+// same computation as the bin-match kernel: per (query, ref, k) popcount of
 // bins agreeing on all b bit planes, with -O3 + OpenMP threading +
 // hardware popcount — i.e. an honest, optimised CPU contender.
 //

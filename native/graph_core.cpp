@@ -17,8 +17,8 @@
 //     activation offset and per-component result caching across offsets
 //     (a component is re-scored only if the sweep touched it).
 //
-// The TPU dense-MXU sweep (poppunk_tpu/ops/device_sweep.py) stays the
-// fast path for n <= 32768 / score_idx 0; this file is the any-n,
+// The dense device sweep (poppunk_tpu/ops/device_sweep.py) stays the
+// fast path for score_idx 0 up to the memory plan's cap; this file is the any-n,
 // any-score host engine. Python twin: poppunk_tpu/network/incremental.py.
 //
 // Build: g++ -O3 -march=native -fopenmp -shared -fPIC -o libgraph_core.so graph_core.cpp

@@ -1,4 +1,5 @@
-"""poppunk_tpu — TPU-native population partitioning using nucleotide k-mers.
+"""poppunk_tpu — accelerator-native population partitioning using nucleotide
+k-mers.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 bacpop/PopPUNK (reference: PopPUNK/__init__.py:6, v2.7.9) and its external
@@ -8,15 +9,15 @@ compute core pp-sketchlib:
   one-permutation MinHash over ntHash rolling hashes), vectorised with
   numpy on the host and JAX on device.
 - All-vs-all / query-vs-reference core & accessory distances as a tiled
-  Pallas TPU kernel over packed bit-plane sketches.
+  Pallas (Triton) GPU kernel over packed bit-plane sketches.
 - 2-D mixture model fits (variational-Bayes GMM, HDBSCAN), boundary
   refinement, lineage (sparse kNN) fits — on device via jit/vmap.
 - Network construction + connected-component cluster naming, clique
   pruning, MSTs — vectorised label propagation on device with exact host
   fallbacks.
-- Multi-chip scaling via jax.sharding.Mesh + shard_map: the reference
+- Multi-device scaling via jax.sharding.Mesh + shard_map: the reference
   sketch tensor is sharded across devices, query tiles stream data
-  parallel, distance tiles assemble over ICI collectives.
+  parallel, distance tiles assemble through collectives.
 
 File-format compatibility with the reference is kept where useful
 (HDF5 sketch schema per PopPUNK/web.py:14-61, .dists.pkl/.npy per
@@ -35,20 +36,27 @@ SEARCH_DEPTH_FACTOR = 10
 DEFAULT_LINEAGE_RESOLUTION = 1e-10
 
 
+def jax_cache_dir():
+    """Where the persistent compilation cache lives:
+    JAX_COMPILATION_CACHE_DIR when set, else ``.jax_cache`` at the root of
+    the checkout (a fixed path, so the cache's keys stay valid)."""
+    import os
+
+    return os.environ.get(
+        "JAX_COMPILATION_CACHE_DIR",
+        os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".jax_cache"))
+
+
 def configure_jax_cache():
-    """Enable JAX's persistent compilation cache (first TPU compiles cost
-    tens of seconds; repeat CLI invocations should not pay them again).
-    Called by every CLI entry point; honours an explicit
-    JAX_COMPILATION_CACHE_DIR."""
+    """Enable JAX's persistent compilation cache (repeat CLI invocations
+    should not pay first compiles again). Called by every CLI entry
+    point, the tests and the benchmarks."""
     import os
 
     import jax
 
-    cache_dir = os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "poppunk_tpu",
-                     "jax_cache"),
-    )
+    cache_dir = jax_cache_dir()
     try:
         os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)

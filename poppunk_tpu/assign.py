@@ -1,6 +1,6 @@
 """Query assignment — the production path.
 
-TPU-native counterpart of PopPUNK/assign.py (assign_query :249,
+Device counterpart of PopPUNK/assign.py (assign_query :249,
 assign_query_hdf5 :326): sketch queries, query-vs-reference distance tiles
 on device, model classification of every pair, network attachment with
 stable cluster naming, and optional database update with

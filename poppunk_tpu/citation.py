@@ -4,7 +4,7 @@ Counterpart of PopPUNK/citation.py: prints the papers to cite and a methods
 paragraph templated from the actual run parameters. The method lineage is
 the same (PopPUNK clustering over BinDash-style b-bit one-permutation
 MinHash sketches of ntHash k-mer hashes); this implementation additionally
-cites JAX/XLA since the compute core is TPU-native.
+cites JAX/XLA since the compute core runs on it.
 """
 
 import os
@@ -62,10 +62,10 @@ def generate_methods(args, assign=False):
     mode = "Query assignment was performed" if assign else \
         "Genomes were clustered"
     return (
-        f"Methods: {mode} with poppunk_tpu v{__version__}, a TPU-native "
+        f"Methods: {mode} with poppunk_tpu v{__version__}, a JAX "
         f"implementation of the PopPUNK method (Lees et al. 2019). Genomes "
         f"were sketched using b-bit one-permutation MinHash over canonical "
         f"ntHash k-mer hashes {sketch_text}; core and accessory distances "
         f"were estimated from per-k Jaccard indices by constrained "
-        f"log-linear regression, computed on TPU via JAX/XLA.\n"
+        f"log-linear regression, computed on device via JAX/XLA.\n"
     )

@@ -1,7 +1,7 @@
 """poppunk_tpu_assign — query assignment CLI.
 
 Counterpart of ``poppunk_assign`` (PopPUNK/assign.py:28-247): same flag
-surface; sketching/distances/assignment run on the TPU-native pipeline.
+surface; sketching/distances/assignment run on the device pipeline.
 """
 
 import argparse

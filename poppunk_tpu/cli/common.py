@@ -72,15 +72,15 @@ def add_accel_compat_flags(parser, *names):
 
     The reference gates CUDA offload behind --gpu-sketch/--gpu-dist/
     --gpu-model/--gpu-graph/--use-gpu/--deviceid (PopPUNK/__main__.py:
-    216-220, docs/gpu.rst). Here every compute stage already runs on the
-    TPU mesh, so existing scripts keep working: the flags parse, do
-    nothing, and note_accel_compat_flags() says so on stderr."""
+    216-220, docs/gpu.rst). Here every compute stage already runs on
+    JAX's default device, so existing scripts keep working: the flags
+    parse, do nothing, and note_accel_compat_flags() says so on stderr."""
     group = parser.add_argument_group(
-        "GPU options (compatibility; compute always runs on TPU)")
+        "GPU options (compatibility; compute runs on JAX's default device)")
     for name in names:
         flag, kwargs = _ACCEL_FLAG_DEFS[name]
         group.add_argument(flag, help="Accepted for compatibility with "
-                          "PopPUNK; ignored (TPU offload is automatic)",
+                          "PopPUNK; ignored (device offload is automatic)",
                           **kwargs)
 
 
@@ -92,7 +92,7 @@ def note_accel_compat_flags(args):
     if set_flags:
         sys.stderr.write(
             " ".join(set_flags).replace("_", "-")
-            + ": compute runs on the TPU device mesh automatically; "
+            + ": compute runs on JAX's default devices automatically; "
             "GPU flags are accepted for compatibility and ignored\n")
 
 

@@ -1,6 +1,6 @@
 """poppunk_tpu — main CLI.
 
-TPU-native counterpart of the reference's ``poppunk`` command
+Device counterpart of the reference's ``poppunk`` command
 (PopPUNK/__main__.py:245-791): modes --create-db, --qc-db,
 --fit-model {bgmm,dbscan,refine,lineage,threshold}, --use-model, with the
 same flag surface and on-disk conventions (sketch DB h5, .dists pkl/npy,
@@ -32,7 +32,7 @@ DEFAULT_R = 50
 def get_options(arg_list=None):
     parser = argparse.ArgumentParser(
         prog="poppunk_tpu",
-        description="PopPUNK on TPU: population partitioning using "
+        description="PopPUNK in JAX: population partitioning using "
                     "nucleotide k-mers",
     )
     mode_group = parser.add_argument_group("Mode of operation")

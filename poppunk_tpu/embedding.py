@@ -3,11 +3,12 @@
 The reference shells out to the external C++/CUDA ``SCE.wtsne`` package
 (PopPUNK/mandrake.py:67-110): an asynchronous per-edge SGD over a kNN graph
 of accessory distances. That access pattern (billions of single-pair
-updates) is hostile to TPUs, so this is re-designed as *batched* SGD under
-one jit: every step applies the attractive gradient over all kNN edges at
-once (segment-sum) and a resampled set of repulsive pairs, with the same
-Student-t kernel (learning rate is constant with adaptive per-coordinate
-gains, sklearn-style, rather than the reference's linear eta decay).
+updates) is hostile to accelerators, so this is re-designed as *batched*
+SGD under one jit: every step applies the attractive gradient over all kNN
+edges at once (segment-sum) and a resampled set of repulsive pairs, with
+the same Student-t kernel (learning rate is constant with adaptive
+per-coordinate gains, sklearn-style, rather than the reference's linear
+eta decay).
 maxIter counts single-pair updates for CLI compatibility and is converted
 to batched epochs.
 
@@ -62,7 +63,7 @@ def _perplexity_probabilities(dists, perplexity, n_iter=50):
 
 
 # Above this many points the dense [n, n] gradient (exact t-SNE repulsion,
-# which XLA evaluates as fused elementwise + reductions — fast on TPU) gives
+# which XLA evaluates as fused elementwise + reductions) gives
 # way to sampled repulsion (LargeVis/SCE estimator).
 DENSE_LIMIT = 8192
 

@@ -32,8 +32,7 @@ import h5py
 import numpy as np
 
 from .. import SKETCH_VERSION
-from ..sketch.minhash import Sketch, SketchParams, sketch_sequence
-from ..sketch.reader import read_sequence_input
+from ..sketch.minhash import Sketch, SketchParams, _sketch_one
 from ..utils import db_h5_path, read_rfile
 
 RANDOM_MODEL = "pair-bernoulli-v1"
@@ -344,19 +343,6 @@ def add_random(db_prefix, sequence_names=None, klist=None, strand_preserved=Fals
         _write_random_group(db, use_rc=not strand_preserved, klist=klist)
 
 
-def _sketch_one(args):
-    # native_threads=1 when running inside the construct_database process
-    # pool: the pool already spans the cores across genomes, and letting
-    # every worker also fan OpenMP across k-mer lengths oversubscribes
-    # (P workers x min(n_k, cores) threads on cores CPUs)
-    name, files, params, *rest = args
-    native_threads = rest[0] if rest else None
-    codes, length, missing, is_reads = read_sequence_input(files)
-    return sketch_sequence(name, codes, params, length=length,
-                           missing_bases=missing, reads=is_reads,
-                           native_threads=native_threads)
-
-
 def construct_database(assembly_list, klist, sketch_size64, o_prefix, threads=1,
                        overwrite=False, strand_preserved=False, min_count=0,
                        use_exact=False, calc_random=True, codon_phased=False,
@@ -391,7 +377,9 @@ def construct_database(assembly_list, klist, sketch_size64, o_prefix, threads=1,
         from multiprocessing import get_context
 
         jobs = [(n, f, params, 1) for n, f in zip(names, sequences)]
-        with get_context("fork").Pool(processes=min(threads, len(jobs))) as pool:
+        # spawn, not fork: a caller may already hold a device context,
+        # which a forked child must not inherit; workers import no JAX
+        with get_context("spawn").Pool(min(threads, len(jobs))) as pool:
             sketches = pool.map(_sketch_one, jobs)
     else:
         sketches = [_sketch_one((n, f, params, None))

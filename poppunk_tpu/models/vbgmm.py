@@ -1,6 +1,6 @@
 """Variational-Bayes Gaussian mixture in JAX.
 
-TPU-native re-design of the reference's sklearn BayesianGaussianMixture fit
+Device re-design of the reference's sklearn BayesianGaussianMixture fit
 (PopPUNK/bgmm.py:38-43: n_components=K, n_init=5, covariance_type='full',
 weight_concentration_prior=0.1 (dirichlet-process stick-breaking),
 mean_precision_prior=0.1, mean_prior=[0,0]): the same variational
@@ -19,6 +19,12 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.scipy.special import digamma, gammaln
+
+# The model's covariances come from these n x K x 2 products of distances
+# around 0.01; a reduced-precision default (TF32 on a GPU keeps ~3 decimal
+# digits) would move the means and covariances. At these widths exact f32
+# costs nothing.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _kmeans_init(key, X, mask, k, iters=10):
@@ -41,7 +47,7 @@ def _kmeans_init(key, X, mask, k, iters=10):
         assign = jnp.argmin(d2, axis=1)
         onehot = jax.nn.one_hot(assign, k, dtype=X.dtype) * mask[:, None]
         counts = onehot.sum(0)
-        sums = onehot.T @ X
+        sums = jnp.matmul(onehot.T, X, precision=_HIGHEST)
         return jnp.where(
             counts[:, None] > 0, sums / jnp.maximum(counts[:, None], 1), centers
         )
@@ -56,9 +62,10 @@ def _estimate_params(X, resp, prior):
     beta0, m0, nu0, psi0 = prior
     n, d = X.shape
     nk = resp.sum(0) + 1e-10  # [K]
-    xbar = (resp.T @ X) / nk[:, None]  # [K, d]
+    xbar = jnp.matmul(resp.T, X, precision=_HIGHEST) / nk[:, None]  # [K, d]
     diff = X[:, None, :] - xbar[None, :, :]  # [n, K, d]
-    sk = jnp.einsum("nk,nki,nkj->kij", resp, diff, diff) / nk[:, None, None]
+    sk = jnp.einsum("nk,nki,nkj->kij", resp, diff, diff,
+                    precision=_HIGHEST) / nk[:, None, None]
     beta_k = beta0 + nk
     m_k = (beta0 * m0[None, :] + nk[:, None] * xbar) / beta_k[:, None]
     nu_k = nu0 + nk
@@ -129,7 +136,8 @@ def _fit_vbgmm_padded(key, X, mask, k, gamma0=0.1, beta0=0.1, max_iter=100,
     # masked covariance for the prior scale matrix
     mu = (mask[:, None] * X).sum(0) / n_valid
     Xc = (X - mu) * mask[:, None]
-    psi0 = (Xc.T @ Xc) / jnp.maximum(n_valid - 1.0, 1.0)
+    psi0 = (jnp.matmul(Xc.T, Xc, precision=_HIGHEST)
+            / jnp.maximum(n_valid - 1.0, 1.0))
     prior = (beta0, m0, nu0, psi0)
 
     def one_init(key):

@@ -145,7 +145,7 @@ def print_external_clusters(new_clusters, ext_cluster_file, out_prefix,
                             old_names, print_ref=True):
     """Relate components to externally-defined clusters
     (PopPUNK/network.py:1665-1719)."""
-    import pandas as pd
+    import csv
     from collections import defaultdict
 
     d = defaultdict(list)
@@ -168,8 +168,9 @@ def print_external_clusters(new_clusters, ext_cluster_file, out_prefix,
     if "sample" not in d:
         sys.stderr.write("WARNING: No new samples found, cannot write external clusters\n")
     else:
-        pd.DataFrame(data=d).to_csv(
-            out_prefix + "_external_clusters.csv",
-            columns=["sample"] + list(ext_clusters.keys()),
-            index=False,
-        )
+        columns = ["sample"] + list(ext_clusters.keys())
+        with open(out_prefix + "_external_clusters.csv", "w",
+                  newline="") as f:
+            writer = csv.writer(f, lineterminator="\n")
+            writer.writerow(columns)
+            writer.writerows(zip(*(d[c] for c in columns)))

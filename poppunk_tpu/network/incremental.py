@@ -17,18 +17,14 @@ available: one compact-forward triangle pass for the whole sweep
 
 import ctypes
 import os
-import subprocess
 import sys
 
 import numpy as np
 
+from ..native_build import native_lib
 from .graph import Graph
 from .summary import betweenness_max_per_component
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libgraph_core.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "graph_core.cpp")
 _graph_lib = None
 _graph_lib_tried = False
 
@@ -40,17 +36,7 @@ def _get_graph_lib():
         return _graph_lib
     _graph_lib_tried = True
     try:
-        if (not os.path.isfile(_LIB_PATH) or
-                os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)):
-            cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
-                   "-fPIC", "-o", _LIB_PATH, _SRC_PATH]
-            try:
-                subprocess.run(cmd, check=True, capture_output=True)
-            except subprocess.CalledProcessError:
-                # toolchains without OpenMP still get the serial build
-                cmd.remove("-fopenmp")
-                subprocess.run(cmd, check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(native_lib("graph_core", openmp_optional=True))
         i32p = ctypes.POINTER(ctypes.c_int32)
         f64p = ctypes.POINTER(ctypes.c_double)
         lib.sweep_scores_v2.restype = None

@@ -1,4 +1,4 @@
-"""Compute kernels: Pallas TPU kernels with numpy references.
+"""Compute kernels: device kernels with numpy references.
 
 Every device kernel here has a numpy oracle in the same module (or a
 ``*_np`` sibling) used by the test-suite — mirroring the reference's

@@ -1,22 +1,22 @@
-"""Batched Brandes betweenness on device (MXU formulation).
+"""Batched Brandes betweenness on device (matmul formulation).
 
 The refine betweenness scores (score_idx 1/2) need, per evaluated
 boundary offset, the max normalised betweenness centrality per network
 component of size > 3, from a sampled source subset
 (reference: networkSummary + betweenness_sample,
-/root/reference/PopPUNK/network.py:1204-1307 and 1279-1285; the host
+PopPUNK/network.py:1204-1307 and 1279-1285; the host
 oracle is network/summary.brandes_betweenness, whose native OpenMP twin
 is native/graph_core.cpp).
 
-TPU-first formulation: the strain-graph components at refine scale are
-a few thousand vertices each — their DENSE adjacency fits VMEM-friendly
-[m, m] tiles — and Brandes' level-synchronous BFS is a sequence of
+Matmul formulation: the strain-graph components at refine scale are
+a few thousand vertices each — their DENSE adjacency fits [m, m]
+tiles — and Brandes' level-synchronous BFS is a sequence of
 (adjacency x per-source-vector) products, so a BATCH of components x a
 BATCH of sources turns the whole forward sigma recursion and backward
-dependency accumulation into einsum('cij,cjs->cis') matmuls on the MXU.
+dependency accumulation into einsum('cij,cjs->cis') matmuls.
 One jitted while_loop runs all components and all sources to
 convergence simultaneously; no per-source Python, no scalar frontier
-queues (compiler-unfriendly on TPU).
+queues.
 
 Shortest-path counts sigma at these diameters (dense strain blobs,
 diameter 2-4) stay far below f32 range; matmuls run at
@@ -113,7 +113,7 @@ def pack_components(i, j, labels, min_size=4, max_comp=None, pad_to=None):
     (adj [C, m, m] f32, local_of [n] i32 (-1 if dropped), comps
     (list of global-vertex arrays per kept component)) with m the
     largest kept component size rounded up to ``pad_to`` (default:
-    next multiple of 128, the MXU tile edge)."""
+    next multiple of 128)."""
     labels = np.asarray(labels)
     comps_all, counts = np.unique(labels, return_counts=True)
     keep = comps_all[counts >= min_size]

@@ -1,24 +1,27 @@
 """Device-side sketch distance computation.
 
-This is the performance core of the framework — the TPU-native replacement
+This is the performance core of the framework — the device replacement
 for pp-sketchlib's all-vs-all / query-vs-ref distance engine (invoked by the
 reference at PopPUNK/sketchlib.py:528-537). Pipeline, fully fused under one
 jit per query chunk:
 
     packed bit-plane sketches (uint32)
       -> bin match counts        (XNOR, AND over planes, popcount)   [kernel]
-      -> b-bit collision + random-match corrected Jaccard per k      [VPU]
-      -> constrained log-linear fit across k                         [VPU]
+      -> b-bit collision + random-match corrected Jaccard per k
+      -> constrained log-linear fit across k
       -> (core, accessory) per pair
 
-Two kernel implementations with identical semantics:
-  * ``match_counts_xla`` — pure jnp, runs on CPU/TPU, the reference/oracle;
-  * Pallas TPU kernel in ops/pallas_jaccard.py for the hot path.
+Two bin-match implementations with identical semantics, chosen by
+ops/match_kernel.match_counts:
+  * ``match_counts_xla`` / ``match_counts_xla_t`` — plain jnp, the CPU
+    route and the reference the kernel is tested against;
+  * the Pallas Triton kernel in ops/match_kernel.py, the GPU route.
 
 Device layout: ``planes[n, K, P, Wp]`` uint32, where K = len(klist),
-P = bbits, Wp = 2*sketchsize64 zero-padded up to a multiple of 128 lanes.
-Zero padding in both operands XNORs to all-ones through every plane, adding
-a constant (pad words * 32) to each raw count, which is subtracted.
+P = bbits, Wp = 2*sketchsize64 zero-padded up to a multiple of the kernel's
+word chunk. Zero padding in both operands XNORs to all-ones through every
+plane, adding a constant (pad words * 32) to each raw count, which is
+subtracted.
 """
 
 from functools import partial
@@ -28,13 +31,14 @@ import jax.numpy as jnp
 import numpy as np
 
 from .kmer_fit import _fit_math
-
-_LANES = 128
+from .match_kernel import WORD_CHUNK, match_counts, use_kernel
 
 
 def plane_geometry(sketchsize64, bbits):
+    """(real words w32, padded words Wp, pad bits) of one plane row: the
+    word axis is padded only to the bin-match kernel's word chunk."""
     w32 = 2 * sketchsize64
-    wp = ((w32 + _LANES - 1) // _LANES) * _LANES
+    wp = -(-w32 // WORD_CHUNK) * WORD_CHUNK
     pad_bits = (wp - w32) * 32
     return w32, wp, pad_bits
 
@@ -96,6 +100,34 @@ def pack_planes(sketches, klist=None, plane_major=False,
     return planes, lengths, freqs
 
 
+def unpack_planes(planes, lengths, freqs, klist, sketchsize64, names,
+                  plane_major=False):
+    """Inverse of pack_planes: Sketch objects from a plane tensor (host
+    arrays), one per name, for genomes [0, len(names))."""
+    from ..sketch.minhash import Sketch
+
+    planes = np.asarray(planes)
+    if not plane_major:
+        planes = planes.transpose(1, 2, 0, 3)  # [K, P, n, Wp]
+    n = len(names)
+    bbits = planes.shape[1]
+    w32 = 2 * sketchsize64
+    usigs = []
+    for ki in range(len(klist)):
+        words = np.ascontiguousarray(planes[ki, :, :n, :w32])  # [P, n, w32]
+        u = words.view(np.uint64)  # little-endian (low32, high32) pairs
+        usigs.append(np.ascontiguousarray(u.transpose(1, 2, 0))
+                     .reshape(n, sketchsize64 * bbits))
+    lengths = np.asarray(lengths)
+    freqs = np.asarray(freqs)
+    return [Sketch(name=name,
+                   usigs={int(k): usigs[ki][i] for ki, k in enumerate(klist)},
+                   sketchsize64=sketchsize64, bbits=bbits,
+                   length=int(lengths[i]), missing_bases=0,
+                   base_freq=freqs[i].astype(np.float64))
+            for i, name in enumerate(names)]
+
+
 def match_counts_xla(planes_q, planes_r, pad_bits):
     """Bin match counts, pure jnp. [nq,K,P,Wp] x [nr,K,P,Wp] -> i32[nq,nr,K].
 
@@ -124,9 +156,9 @@ def match_counts_xla_t(planes_q, planes_r, pad_bits):
     [K,P,nq,Wp] x [K,P,nr,Wp] -> i32[nq,nr,K].
 
     The scale pipeline (poppunk_tpu/scale.py) keeps sketches resident in
-    the kernels' native plane-major layout so no per-call transpose of
-    the full reference tensor is ever materialised (at 65k genomes that
-    transpose is a second 8.4 GB copy — a measured RESOURCE_EXHAUSTED).
+    this plane-major layout so no per-call transpose of the full
+    reference tensor is ever materialised (at 65k genomes that transpose
+    is a second 8.4 GB copy).
     """
     pq = planes_q.astype(jnp.uint32)
     pr = planes_r.astype(jnp.uint32)
@@ -147,9 +179,9 @@ def match_counts_xla_t(planes_q, planes_r, pad_bits):
 
 def _random_jaccard_jnp(k, len_q, len_r, freq_q, freq_r, use_rc=True):
     """Expected random Jaccard, jnp twin of sketch/random_match.py."""
-    # HIGHEST: the TPU MXU default (bf16 passes) injects ~4e-3 relative
-    # noise into the match probability, which the k-mer curve fit then
-    # amplifies; these dots are 4-wide — exact f32 is free
+    # HIGHEST: a reduced-precision default (bf16 or TF32 passes) injects
+    # ~4e-3 relative noise into the match probability, which the k-mer
+    # curve fit then amplifies; these dots are 4-wide — exact f32 is free
     m_f = jnp.matmul(freq_q, freq_r.T,
                      precision=jax.lax.Precision.HIGHEST)  # [nq, nr]
     p = m_f ** k
@@ -196,12 +228,8 @@ def _dist_chunk(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
                 sketchsize64, bbits, pad_bits, random_correct, use_rc,
                 jaccard, use_pallas, post_name=None, post_static=(),
                 post_params=None):
-    if use_pallas:
-        from .pallas_jaccard import match_counts_device
-
-        matches = match_counts_device(planes_q, planes_r, pad_bits)
-    else:
-        matches = match_counts_xla(planes_q, planes_r, pad_bits)
+    matches = match_counts(planes_q, planes_r, pad_bits,
+                           use_pallas=use_pallas)
     j = corrected_jaccards(matches, klist, len_q, len_r, freq_q, freq_r,
                            sketchsize64, bbits, random_correct, use_rc)
     if jaccard:
@@ -212,10 +240,6 @@ def _dist_chunk(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
     from .fused_assign import apply_post
 
     return d, apply_post(d, (post_name, post_static, post_params))
-
-
-def _auto_use_pallas():
-    return jax.default_backend() == "tpu"
 
 
 # Below this many pairs the sharding overhead outweighs the parallelism;
@@ -253,7 +277,7 @@ def pairwise_block(planes_q, planes_r, len_q, len_r, freq_q, freq_r, klist,
             freq_q, freq_r, klist, sketchsize64, bbits, random_correct,
             use_rc, jaccard, use_pallas, post_spec=post_spec)
     if use_pallas is None:
-        use_pallas = _auto_use_pallas()
+        use_pallas = use_kernel()
     _, _, pad_bits = plane_geometry(sketchsize64, bbits)
     post_name, post_static, post_params = post_spec or (None, (), None)
     nq = planes_q.shape[0]
@@ -334,7 +358,7 @@ def warmup_query_programs(sketches_r, klist, post_spec=None, chunk=512,
     first-compile. Returns the number of programs warmed.
     """
     if use_pallas is None:
-        use_pallas = _auto_use_pallas()
+        use_pallas = use_kernel()
     ss64 = sketches_r[0].sketchsize64
     bbits = sketches_r[0].bbits
     planes_r, len_r, freq_r = pack_planes(sketches_r, klist)
@@ -354,8 +378,7 @@ def warmup_query_programs(sketches_r, klist, post_spec=None, chunk=512,
             tuple(int(k) for k in klist), int(ss64), int(bbits),
             int(pad_bits), True, bool(use_rc), False, bool(use_pallas),
             post_name, post_static, post_params)
-        # force execution so the compile actually happens now
-        np.asarray((out[0] if isinstance(out, tuple) else out)[-1, -1])
+        jax.block_until_ready(out)
         n += 1
         if bucket >= chunk:
             return n

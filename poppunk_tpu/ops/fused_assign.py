@@ -3,11 +3,11 @@
 The reference's serving path (PopPUNK/assign.py:502 then models.py:1085 /
 models.py:411-464) computes the query-vs-reference distance matrix in one
 native call, ships it to Python, then re-walks every pair in a second pass
-to classify it against the fitted model. On TPU that second pass would mean
-re-uploading the whole |Q|x|R| matrix through the host. Instead the
-classifier runs inside the same jit as the distance kernel, on the tile
-that is already in VMEM/HBM — one dispatch per query chunk returns both the
-distances and the per-pair assignment.
+to classify it against the fitted model. On a device that second pass
+would mean re-uploading the whole |Q|x|R| matrix through the host.
+Instead the classifier runs inside the same jit as the distance kernel,
+on the tile that is already in device memory — one dispatch per query
+chunk returns both the distances and the per-pair assignment.
 
 A post-op is identified by a static string (jit-cache key) plus a static
 tuple and a pytree of device parameters:

@@ -1,6 +1,6 @@
 """NumPy reference implementation of sketch Jaccard estimation.
 
-This is the oracle for the Pallas TPU kernel (ops/pallas_jaccard.py) and the
+This is the oracle for the bin-match kernel (ops/match_kernel.py) and the
 slow-but-exact host path. Semantics:
 
 - ``matches(a, b)`` = number of bins whose bbits-bit values agree on every

@@ -2,8 +2,8 @@
 
 The reference shells out to the external rapidnj C++ binary for large
 trees (PopPUNK/trees.py:31-72); here the O(n^3) NJ main loop runs on the
-TPU instead: the distance matrix stays resident, every step evaluates the
-full masked Q matrix with VPU elementwise ops + row reductions and records
+device instead: the distance matrix stays resident, every step evaluates
+the full masked Q matrix with elementwise ops + row reductions and records
 the join; the host replays the O(n) join log into a tree.
 
 Agreement with the host numpy NJ is asserted via patristic distance

@@ -1,15 +1,14 @@
 """Multi-host initialisation and hierarchical meshes.
 
 The reference is strictly single-process (SURVEY.md §5.8); scaling the
-genome axis across a TPU pod is this framework's replacement for its
+genome axis across several hosts is this framework's replacement for its
 manual batch scripts. Wire-up:
 
 - every host calls :func:`init_distributed` (jax.distributed handshake);
 - :func:`pod_mesh` builds a ('q', 'r') mesh whose ``r`` axis is laid out
-  over ICI within each slice (reference sketch shards ride the fast
-  interconnect) and ``q`` over DCN across slices (query batches are
-  data-parallel; the only cross-slice traffic is the small distance-tile
-  gather);
+  within each host (reference sketch shards ride the fast intra-host
+  interconnect) and ``q`` across hosts (query batches are data-parallel;
+  the only cross-host traffic is the small distance-tile gather);
 - the sharded distance path (parallel/dists.py) is topology-agnostic —
   it takes whatever mesh it is given.
 
@@ -17,7 +16,7 @@ Tested two ways: single-process virtual meshes (the driver's dryrun and
 most of the suite), and a true two-controller run — two OS processes,
 four virtual CPU devices each, gloo collectives between them
 (tests/test_distributed.py) — which is the CPU stand-in for a multi-host
-TPU pod and exercises the real cross-process gather path.
+cluster and exercises the real cross-process gather path.
 """
 
 import os
@@ -34,8 +33,7 @@ def init_distributed(coordinator_address=None, num_processes=None,
 
     No-op when single-process (the common case in tests / one-host runs).
     Arguments default from the standard environment variables
-    (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) or the TPU metadata
-    that jax.distributed.initialize discovers natively on Cloud TPU.
+    (COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "COORDINATOR_ADDRESS")
@@ -63,10 +61,10 @@ def _env_int(name):
 
 def pod_mesh(n_q=None):
     """A ('q', 'r') mesh over ALL global devices, r contiguous within each
-    process (ICI-local reference shards; q crosses DCN).
+    process (host-local reference shards; q crosses hosts).
 
     n_q defaults to the process count, giving each host one query shard
-    and an r axis entirely inside its slice.
+    and an r axis entirely inside its host.
     """
     devices = jax.devices()
     n_dev = len(devices)

@@ -1,15 +1,15 @@
 """Sharded all-vs-all / query-vs-reference distances over a device mesh.
 
-TPU-native replacement for pp-sketchlib's single-device distance engine
+Multi-device replacement for pp-sketchlib's single-device distance engine
 (reference call site PopPUNK/sketchlib.py:528-537): the packed reference
 sketch tensor is sharded along the mesh ``r`` axis, query batches along the
 ``q`` axis, and every device computes the (query shard x reference shard)
 distance tile locally — zero cross-device traffic in the steady state; the
-only collective is the output gather, which XLA emits as all-gathers over
-ICI when the caller asks for a replicated result.
+only collective is the output gather, which XLA emits as all-gathers when
+the caller asks for a replicated result.
 
 Works on any mesh size including 1 device (where it degrades to the plain
-single-chip kernel path).
+single-device kernel path).
 """
 
 from functools import partial
@@ -18,24 +18,15 @@ import jax
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ..ops.distances import (
-    core_accessory,
-    corrected_jaccards,
-    match_counts_xla,
-    plane_geometry,
-)
+from ..ops.distances import core_accessory, corrected_jaccards, plane_geometry
+from ..ops.match_kernel import match_counts, use_kernel
 
 
 def _local_block(pq, pr, lq, lr, fq, fr, post_params, *, klist, sketchsize64,
                  bbits, pad_bits, random_correct, use_rc, jaccard, use_pallas,
                  post_name, post_static):
     """Distance tile for one device's (query shard, reference shard)."""
-    if use_pallas:
-        from ..ops.pallas_jaccard import match_counts_device
-
-        matches = match_counts_device(pq, pr, pad_bits)
-    else:
-        matches = match_counts_xla(pq, pr, pad_bits)
+    matches = match_counts(pq, pr, pad_bits, use_pallas=use_pallas)
     j = corrected_jaccards(matches, klist, lq, lr, fq, fr,
                            sketchsize64, bbits, random_correct, use_rc)
     if jaccard:
@@ -111,7 +102,7 @@ def sharded_pairwise_block(mesh, planes_q, planes_r, len_q, len_r, freq_q,
     classification runs on each device's tile inside the same dispatch.
     """
     if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+        use_pallas = use_kernel()
     _, _, pad_bits = plane_geometry(sketchsize64, bbits)
     post_name, post_static, post_params = post_spec or (None, (), None)
     nq, nr = planes_q.shape[0], planes_r.shape[0]

@@ -60,15 +60,20 @@ def stage(name, sync=False):
         entry[1] += 1
 
 
-def _device_sync():
-    try:
-        import jax
+def record(name, seconds):
+    """Add an already-measured duration to stage ``name``."""
+    if not _ENABLED:
+        return
+    entry = _STAGES.setdefault(name, [0.0, 0])
+    entry[0] += seconds
+    entry[1] += 1
 
-        # tiny computation fetched to host: a reliable barrier even on
-        # backends where block_until_ready is a no-op
-        float(jax.numpy.zeros(()) + 0)
-    except Exception:
-        pass
+
+def _device_sync():
+    import jax
+
+    # a trivial computation queued behind the stage's device work
+    jax.block_until_ready(jax.numpy.zeros(()) + 0)
 
 
 def report(stream=None):

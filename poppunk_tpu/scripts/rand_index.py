@@ -31,9 +31,9 @@ def rand_index_score(labels_true, labels_pred):
 
 
 def adjusted_rand(labels_true, labels_pred):
-    from sklearn.metrics import adjusted_rand_score
+    from ..utils import adjusted_rand_index
 
-    return float(adjusted_rand_score(labels_true, labels_pred))
+    return adjusted_rand_index(labels_true, labels_pred)
 
 
 def get_options(arg_list=None):

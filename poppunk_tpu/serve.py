@@ -34,9 +34,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from .io.hdf5db import read_db_params, read_sketches
-from .ops.distances import (_auto_use_pallas, _dist_chunk, pack_planes,
-                            plane_geometry)
+from .ops.distances import _dist_chunk, pack_planes, plane_geometry
+from .ops.match_kernel import use_kernel
 from .utils import db_h5_path, read_isolate_type_from_csv
 
 
@@ -47,22 +46,12 @@ def _file_base(prefix):
 class AssignSession:
     def __init__(self, ref_db, model_dir=None, stable="core",
                  use_full_network=False, strand_preserved=False, chunk=512):
-        from .models import load_cluster_fit
+        from .io.hdf5db import get_seqs_in_db, read_db_params, read_sketches
 
         self.ref_db = ref_db = ref_db.rstrip("/")
         model_prefix = (model_dir or ref_db).rstrip("/")
         base = _file_base(model_prefix)
-        self.model = load_cluster_fit(base + "_fit.pkl", base + "_fit.npz")
-        if self.model.type not in ("refine", "bgmm", "dbscan"):
-            raise RuntimeError(
-                "AssignSession serves refine/threshold/bgmm/dbscan models; "
-                "got " + self.model.type)
-        if stable not in ("core", "accessory"):
-            raise ValueError("stable must be 'core' or 'accessory'")
-        self.stable = stable
-        self.chunk = chunk
-        self.use_rc = not strand_preserved
-        self.kmers = tuple(int(k) for k in read_db_params(ref_db)[0])
+        kmers = read_db_params(ref_db)[0]
 
         # serving reference set: the clique-pruned .refs subset if present.
         # Reference ORDER follows the .dists pkl when available — the CLI
@@ -70,8 +59,6 @@ class AssignSession:
         # (assign.py), and 1-NN tie-breaking is "first min", so a
         # different order could resolve duplicate-genome ties to a
         # different cluster than poppunk_assign --stable.
-        from .io.hdf5db import get_seqs_in_db
-
         dist_pkl = _file_base(ref_db) + ".dists"
         if os.path.isfile(dist_pkl + ".pkl"):
             from .utils import read_pickle
@@ -88,6 +75,37 @@ class AssignSession:
         elif os.path.isfile(dist_pkl + ".pkl"):
             r_names = list(all_names)
         sketches = read_sketches(ref_db, r_names)
+        self._setup(sketches, kmers, model_prefix, stable, strand_preserved,
+                    chunk)
+
+    @classmethod
+    def from_sketches(cls, sketches, model_dir, stable="core",
+                      strand_preserved=False, chunk=512):
+        """A session over reference sketches already in memory, in the
+        order of the fit's .dists.pkl, with the fitted model and clusters
+        in ``model_dir`` (no sketch database is read)."""
+        self = cls.__new__(cls)
+        self.ref_db = None
+        self._setup(sketches, sorted(sketches[0].usigs), model_dir.rstrip("/"),
+                    stable, strand_preserved, chunk)
+        return self
+
+    def _setup(self, sketches, kmers, model_prefix, stable, strand_preserved,
+               chunk):
+        from .models import load_cluster_fit
+
+        base = _file_base(model_prefix)
+        self.model = load_cluster_fit(base + "_fit.pkl", base + "_fit.npz")
+        if self.model.type not in ("refine", "bgmm", "dbscan"):
+            raise RuntimeError(
+                "AssignSession serves refine/threshold/bgmm/dbscan models; "
+                "got " + self.model.type)
+        if stable not in ("core", "accessory"):
+            raise ValueError("stable must be 'core' or 'accessory'")
+        self.stable = stable
+        self.chunk = chunk
+        self.use_rc = not strand_preserved
+        self.kmers = tuple(int(k) for k in kmers)
         self.r_names = [s.name for s in sketches]
         self.ss64 = sketches[0].sketchsize64
         self.bbits = sketches[0].bbits
@@ -120,7 +138,7 @@ class AssignSession:
             jnp.asarray(planes_q), self.planes_r, jnp.asarray(len_q),
             self.len_r, jnp.asarray(freq_q), self.freq_r,
             self.kmers, self.ss64, self.bbits, self.pad_bits,
-            True, self.use_rc, False, _auto_use_pallas(), *self.post_spec)
+            True, self.use_rc, False, use_kernel(), *self.post_spec)
         return extra
 
     def _dispatch(self, planes_q, len_q, freq_q):
@@ -181,7 +199,7 @@ class AssignSession:
         """Sketch query inputs (an rfile path, or a (names, files) pair
         of parallel lists) then assign — no query database is written.
         Returns {name: cluster or 'NA'}."""
-        from .io.hdf5db import _sketch_one
+        from .sketch.minhash import _sketch_one
         from .sketch.minhash import SketchParams
         from .utils import read_rfile
 

@@ -6,7 +6,7 @@ reference (PopPUNK/sketchlib.py; algorithm lineage documented in
 PopPUNK/citation.py:31-43 — BinDash one-permutation MinHash over ntHash).
 The implementation here is a from-scratch vectorised redesign, not a port:
 hashing is O(L) numpy bit-ops on the host, binning/densification/packing are
-array ops, and the packed sketches feed the TPU distance kernels directly.
+array ops, and the packed sketches feed the device distance kernels directly.
 """
 
 from .nthash import nthash_canonical, nthash_forward  # noqa: F401

@@ -20,7 +20,8 @@ sketchsize64*bbits uint64):
 
 Jaccard estimation from two sketches counts bins whose bbits-bit values
 agree on all planes, then corrects for chance collisions:
-``J = (matches/S - 2^-b) / (1 - 2^-b)`` — see ops/jaccard_np.py and ops/pallas_jaccard.py.
+``J = (matches/S - 2^-b) / (1 - 2^-b)`` — see ops/jaccard_np.py and
+ops/match_kernel.py.
 
 The exact bit patterns are self-consistent within this framework (they are
 not guaranteed bit-identical to pp-sketchlib, whose source is not part of
@@ -242,3 +243,21 @@ def sketch_sequence(name, codes, params: SketchParams, length=None,
         densified=densified,
         reads=reads,
     )
+
+
+def _sketch_one(args):
+    """Sketch one sample from (name, files, params[, native_threads]): the
+    unit of work of the sketching process pools, importable without h5py
+    or JAX so that spawned workers load neither."""
+    from .reader import read_sequence_input
+
+    # native_threads=1 when running inside a process pool: the pool
+    # already spans the cores across genomes, and letting every worker
+    # also fan OpenMP across k-mer lengths oversubscribes (P workers x
+    # min(n_k, cores) threads on cores CPUs)
+    name, files, params, *rest = args
+    native_threads = rest[0] if rest else None
+    codes, length, missing, is_reads = read_sequence_input(files)
+    return sketch_sequence(name, codes, params, length=length,
+                           missing_bases=missing, reads=is_reads,
+                           native_threads=native_threads)

@@ -7,25 +7,14 @@ library cannot be built (no compiler in the environment)."""
 
 import ctypes
 import os
-import subprocess
 import sys
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libsketch_core.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "sketch_core.cpp")
+from ..native_build import native_lib
 
 _lib = None
 _tried = False
-
-
-def _build():
-    subprocess.run(
-        ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-         "-o", _LIB_PATH, _SRC_PATH],
-        check=True, capture_output=True)
 
 
 def get_lib():
@@ -35,10 +24,7 @@ def get_lib():
         return _lib
     _tried = True
     try:
-        if (not os.path.isfile(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH)):
-            _build()
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(native_lib("sketch_core"))
         lib.sketch_sequence_c.restype = ctypes.c_int
         lib.sketch_sequence_c.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,

@@ -80,33 +80,80 @@ def read_isolate_type_from_csv(clust_csv, mode="clusters", return_dict=False):
     Returns {column: {cluster: set(samples)}} or, with return_dict,
     {column: {sample: cluster}}.
     """
-    import pandas as pd
+    import csv
 
     clusters = defaultdict(dict) if return_dict else {}
-    df = pd.read_csv(clust_csv, index_col=0, quotechar='"')
+    with open(clust_csv, newline="") as f:
+        header, *rows = list(csv.reader(f, quotechar='"'))
+    columns = header[1:]
+    names = [row[0] for row in rows]
 
     if mode == "clusters":
-        type_columns = [n for n, col in enumerate(df.columns) if "Cluster" in col]
+        type_columns = [n for n, col in enumerate(columns)
+                        if "Cluster" in col]
     elif mode == "lineages":
-        type_columns = [n for n, col in enumerate(df.columns) if ("Rank_" in col or "overall" in col)]
+        type_columns = [n for n, col in enumerate(columns)
+                        if "Rank_" in col or "overall" in col]
     elif mode == "external":
-        if len(df.columns) == 1:
+        if len(columns) == 1:
             type_columns = [0]
         else:
-            type_columns = range(len(df.columns) - 1)
+            type_columns = range(len(columns) - 1)
     else:
         raise ValueError("Unknown CSV reading mode: " + mode)
 
-    for row in df.itertuples():
-        for cls_idx in type_columns:
-            cluster_name = df.columns[cls_idx].replace("__autocolour", "")
+    for cls_idx in type_columns:
+        cluster_name = columns[cls_idx].replace("__autocolour", "")
+        values = _csv_column_strings(
+            [row[cls_idx + 1] if cls_idx + 1 < len(row) else ""
+             for row in rows])
+        for name, value in zip(names, values):
             if return_dict:
-                clusters[cluster_name][str(row.Index)] = str(row[cls_idx + 1])
+                clusters[cluster_name][name] = value
             else:
                 if cluster_name not in clusters:
                     clusters[cluster_name] = defaultdict(set)
-                clusters[cluster_name][str(row[cls_idx + 1])].add(row.Index)
+                clusters[cluster_name][value].add(name)
     return clusters
+
+
+def _csv_column_strings(cells):
+    """A CSV column's values as the reference's pandas reader spells them:
+    integer columns as integers, numeric columns with gaps as floats,
+    and empty cells as "nan"."""
+    def parse(kind):
+        try:
+            return [kind(c) if c != "" else None for c in cells]
+        except ValueError:
+            return None
+
+    if "" not in cells and (ints := parse(int)) is not None:
+        return [str(v) for v in ints]
+    if (floats := parse(float)) is not None:
+        return ["nan" if v is None else str(v) for v in floats]
+    return ["nan" if c == "" else c for c in cells]
+
+
+def adjusted_rand_index(labels_true, labels_pred):
+    """Adjusted Rand index of two labelings (Hubert and Arabie, 1985),
+    from their contingency table."""
+    _, t = np.unique(np.asarray(labels_true), return_inverse=True)
+    _, p = np.unique(np.asarray(labels_pred), return_inverse=True)
+    n = t.size
+    cont = np.zeros((t.max(initial=-1) + 1, p.max(initial=-1) + 1), np.int64)
+    np.add.at(cont, (t, p), 1)
+
+    def pairs(x):
+        x = np.asarray(x, np.float64)
+        return float((x * (x - 1) / 2).sum())
+
+    index = pairs(cont)
+    rows, cols = pairs(cont.sum(axis=1)), pairs(cont.sum(axis=0))
+    expected = rows * cols / pairs([n]) if n > 1 else 0.0
+    top = (rows + cols) / 2
+    if top == expected:  # one cluster each, or all singletons
+        return 1.0
+    return (index - expected) / (top - expected)
 
 
 def join_cluster_dicts(d1, d2):

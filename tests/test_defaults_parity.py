@@ -20,8 +20,8 @@ import pytest
 REFERENCE = "/root/reference"
 
 # Dests that intentionally differ / don't apply:
-#  - use_gpu etc. parse as no-ops here (TPU is the accelerator);
-#  - our parsers add TPU-specific options the reference lacks.
+#  - use_gpu etc. parse as no-ops here (offload is automatic);
+#  - our parsers add device-specific options the reference lacks.
 # Every dest present in BOTH parsers must match unless listed here
 # with a justification.
 EXEMPT = {

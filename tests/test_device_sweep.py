@@ -134,8 +134,9 @@ def test_native_betweenness_scores_match_python(seed, score_idx):
 
 
 def test_native_sweep_large_sparse():
-    """No [n, n] buffers: a 50k-vertex sweep (past DEVICE_SWEEP_MAX_N's
-    dense regime) completes quickly for every score index."""
+    """No [n, n] buffers: a 50k-vertex sweep (past the dense regime's
+    memory_plan().device_sweep_max_n) completes quickly for every score
+    index."""
     from poppunk_tpu.network.incremental import sweep_scores_native
 
     rng = np.random.default_rng(0)

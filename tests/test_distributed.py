@@ -1,6 +1,6 @@
 """True multi-process jax.distributed test: two controller processes, four
 virtual CPU devices each, gloo collectives between them — the CPU stand-in
-for a 2-host TPU pod (SURVEY.md §5.8: the reference has no distributed
+for a 2-host cluster (SURVEY.md §5.8: the reference has no distributed
 execution at all; this path is this framework's replacement). The sharded
 distance block computed across process boundaries must equal the
 single-process result, and every host must see the full gathered output."""
@@ -24,8 +24,9 @@ WORKER = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
     sys.path.insert(0, {repo!r})
+    from poppunk_tpu import configure_jax_cache
+    configure_jax_cache()
     from poppunk_tpu.parallel.distributed import (init_distributed,
                                                   is_primary, pod_mesh)
     ok = init_distributed(coordinator_address="localhost:" + port,
@@ -77,8 +78,9 @@ PIPELINE_WORKER = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
     sys.path.insert(0, {repo!r})
+    from poppunk_tpu import configure_jax_cache
+    configure_jax_cache()
     sys.path.insert(0, os.path.join({repo!r}, "tests"))
     from poppunk_tpu.parallel.distributed import init_distributed
     assert init_distributed(coordinator_address="localhost:" + port,

@@ -1,7 +1,7 @@
 """Device-resident scale pipeline (poppunk_tpu/scale.py, synth.py).
 
 Small-n equality against the host streaming path — the semantics the 20k+
-TPU run (bench.py --scale) relies on. Every consumer of the folded device
+device run (bench.py --scale) relies on. Every consumer of the folded device
 buffer is checked against its host oracle.
 """
 
@@ -154,12 +154,13 @@ class TestDeviceSweep:
                   no_local=True, max_move=0.05)
         if score_idx == 0:  # force the sparse HOST branch (the device
             # sparse sweep budgets its own cap and ignores
-            # max_sweep_fetch, which only governs host-tunnel fetches)
+            # max_sweep_fetch, which only governs host fetches)
             import os as _os
 
             import poppunk_tpu.scale as sc_mod
-            orig = sc_mod.MATMUL_SWEEP_MAX_N
-            sc_mod.MATMUL_SWEEP_MAX_N = 0
+            orig = sc_mod.memory_plan
+            plan = orig()._replace(matmul_sweep_max_n=0)
+            sc_mod.memory_plan = lambda: plan
             _os.environ["POPPUNK_TPU_SPARSE_SWEEP"] = "0"
             try:
                 full = refine_fit_device(cd, scale, mean0, mean1, **kw)
@@ -167,7 +168,7 @@ class TestDeviceSweep:
                                            max_sweep_fetch=cd.n_pairs // 3,
                                            **kw)
             finally:
-                sc_mod.MATMUL_SWEEP_MAX_N = orig
+                sc_mod.memory_plan = orig
                 del _os.environ["POPPUNK_TPU_SPARSE_SWEEP"]
         else:
             full = refine_fit_device(cd, scale, mean0, mean1, **kw)
@@ -348,8 +349,8 @@ class TestStreamingCondensed:
                                    log=b_log.append, **kwargs)
         # no buffer => refine routes to the device sparse sweep (the
         # CPU test env runs an 8-device mesh, so this exercises the
-        # mesh-sharded fill); the buffered run (n <= MATMUL_SWEEP_MAX_N)
-        # takes the matmul sweep
+        # mesh-sharded fill); the buffered run (n at most
+        # memory_plan().matmul_sweep_max_n) takes the matmul sweep
         assert any("via edges sweep" in m for m in s_log)
         assert any("via device sweep" in m for m in b_log)
         assert s_out["ari"] == b_out["ari"] == 1.0
@@ -761,7 +762,7 @@ class TestArbitraryPadStreaming:
 @pytest.mark.slow
 class TestManyStrainStreaming:
     """The >20480-tier regime at CPU scale: many strains, capped sweep,
-    separable margins — the exact configuration the 65k TPU bench runs
+    separable margins — the exact configuration the 65k device bench runs
     (auto n_strains=n/640, subsample=5n, streaming, max_sweep_fetch)."""
 
     def test_recovers_many_strains(self):
@@ -921,16 +922,19 @@ class TestColShardedStreaming:
 
     def test_hbm_accounting(self):
         # the shard_planes auto-switch arithmetic: at 131072 genomes /
-        # production geometry, replicated planes overflow a 16 GB v5e;
-        # column-sharded over 8 devices they fit with room for the tile
+        # production geometry, replicated planes pass the (CPU test
+        # budget's) replication cap; column-sharded over 8 devices they
+        # fit with room for the tile
+        from poppunk_tpu.memory import memory_plan
         from poppunk_tpu.scale import streaming_hbm_accounting
 
         prod = dict(klist=(13, 16, 19, 22, 25, 28), sketchsize64=156,
                     bbits=14, chunk=256, knn=5, n_dev=8)
         rep = streaming_hbm_accounting(131072, shard_planes=False, **prod)
         col = streaming_hbm_accounting(131072, shard_planes=True, **prod)
-        assert rep["planes"] > 15e9  # replicated: does NOT fit
-        assert col["total"] < 8e9    # sharded: fits with headroom
+        plan = memory_plan()
+        assert rep["planes"] > plan.replicated_planes_max  # replicated: no
+        assert col["total"] < plan.replicated_planes_max  # sharded: fits
         # sharding splits exactly
         assert col["planes"] * prod["n_dev"] == rep["planes"]
 

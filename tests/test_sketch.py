@@ -228,111 +228,49 @@ class TestPairs:
         assert sq[5, 0] == qr.reshape(n_q, n_ref)[0, 0]
 
 
-class TestPallasKernelOracle:
-    """The Pallas TPU match-count kernel (interpret mode on CPU) must equal
-    the pure-jnp oracle — including tile-padding edges and the plane-major
-    layout transposes."""
+class TestMatchKernelOracle:
+    """The Triton bin-match kernel (interpret mode on CPU) must equal the
+    plain jnp route — including tile edges and both device layouts."""
 
+    @staticmethod
+    def _planes(nq, nr, K, bbits, ss64, seed):
+        from poppunk_tpu.ops.distances import plane_geometry
+
+        w32, wp, pad_bits = plane_geometry(ss64, bbits)
+        rng = np.random.default_rng(seed)
+        pq = np.zeros((nq, K, bbits, wp), dtype=np.uint32)
+        pr = np.zeros((nr, K, bbits, wp), dtype=np.uint32)
+        pq[..., :w32] = rng.integers(0, 2**32, (nq, K, bbits, w32),
+                                     dtype=np.uint32)
+        pr[..., :w32] = rng.integers(0, 2**32, (nr, K, bbits, w32),
+                                     dtype=np.uint32)
+        pr[: min(nq, nr) // 2] = pq[: min(nq, nr) // 2]  # exact matches
+        return pq, pr, pad_bits
+
+    @pytest.mark.parametrize("plane_major", [False, True])
     @pytest.mark.parametrize("nq,nr", [(3, 5), (64, 128), (65, 129)])
-    def test_matches_xla_oracle(self, nq, nr):
-        from poppunk_tpu.ops.distances import match_counts_xla, plane_geometry
-        from poppunk_tpu.ops.pallas_jaccard import match_counts_pallas
+    def test_matches_xla_oracle(self, nq, nr, plane_major):
+        from poppunk_tpu.ops.distances import match_counts_xla
+        from poppunk_tpu.ops.match_kernel import match_counts_triton
 
-        ss64, bbits, K = 16, 5, 3
-        _, wp, pad_bits = plane_geometry(ss64, bbits)
-        rng = np.random.default_rng(nq * 1000 + nr)
-        w32 = 2 * ss64
-        pq = np.zeros((nq, K, bbits, wp), dtype=np.uint32)
-        pr = np.zeros((nr, K, bbits, wp), dtype=np.uint32)
-        pq[..., :w32] = rng.integers(0, 2**32, (nq, K, bbits, w32),
-                                     dtype=np.uint32)
-        pr[..., :w32] = rng.integers(0, 2**32, (nr, K, bbits, w32),
-                                     dtype=np.uint32)
-        got = match_counts_pallas(pq, pr, pad_bits, tq=8, tr=16,
+        pq, pr, pad_bits = self._planes(nq, nr, 3, 5, 17, nq * 1000 + nr)
+        want = match_counts_xla(pq, pr, pad_bits)
+        if plane_major:
+            pq, pr = pq.transpose(1, 2, 0, 3), pr.transpose(1, 2, 0, 3)
+        got = match_counts_triton(pq, pr, pad_bits, plane_major=plane_major,
+                                  tq=16, tr=32, interpret=True)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+    @pytest.mark.parametrize("K", [5, 6])
+    def test_production_geometry_unpadded(self, K):
+        """Sketch size 9984, bbits 14: 312 words per plane row, a whole
+        number of word chunks, so no padding at all."""
+        from poppunk_tpu.ops.distances import match_counts_xla, plane_geometry
+        from poppunk_tpu.ops.match_kernel import match_counts_triton
+
+        assert plane_geometry(156, 14) == (312, 312, 0)
+        pq, pr, pad_bits = self._planes(5, 9, K, 14, 156, K)
+        got = match_counts_triton(pq, pr, pad_bits, tq=8, tr=16,
                                   interpret=True)
-        want = match_counts_xla(pq, pr, pad_bits)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    @pytest.mark.parametrize("nq,nr,K,g", [(3, 5, 3, None), (64, 128, 3, 2),
-                                           (65, 129, 5, 2), (9, 17, 6, 4)])
-    def test_packed_matches_xla_oracle(self, nq, nr, K, g):
-        """Packed-lane kernel: G k-mer lengths per lane row, per-k sums via
-        the segment matmul — incl. non-divisible K (zero-padded remainder
-        group) and auto group selection."""
-        from poppunk_tpu.ops.distances import match_counts_xla, plane_geometry
-        from poppunk_tpu.ops.pallas_jaccard import match_counts_pallas_packed
-
-        ss64, bbits = 16, 5
-        _, wp, pad_bits = plane_geometry(ss64, bbits)
-        rng = np.random.default_rng(nq * 1000 + nr + K)
-        w32 = 2 * ss64
-        pq = np.zeros((nq, K, bbits, wp), dtype=np.uint32)
-        pr = np.zeros((nr, K, bbits, wp), dtype=np.uint32)
-        pq[..., :w32] = rng.integers(0, 2**32, (nq, K, bbits, w32),
-                                     dtype=np.uint32)
-        pr[..., :w32] = rng.integers(0, 2**32, (nr, K, bbits, w32),
-                                     dtype=np.uint32)
-        got = match_counts_pallas_packed(pq, pr, w32, g=g, tq=8, tr=16,
-                                         interpret=True)
-        want = match_counts_xla(pq, pr, pad_bits)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_packed_plane_major(self):
-        from poppunk_tpu.ops.distances import match_counts_xla, plane_geometry
-        from poppunk_tpu.ops.pallas_jaccard import match_counts_pallas_packed
-
-        ss64, bbits, K, nq, nr = 16, 5, 6, 12, 20
-        _, wp, pad_bits = plane_geometry(ss64, bbits)
-        rng = np.random.default_rng(99)
-        w32 = 2 * ss64
-        pq = np.zeros((nq, K, bbits, wp), dtype=np.uint32)
-        pr = np.zeros((nr, K, bbits, wp), dtype=np.uint32)
-        pq[..., :w32] = rng.integers(0, 2**32, (nq, K, bbits, w32),
-                                     dtype=np.uint32)
-        pr[..., :w32] = rng.integers(0, 2**32, (nr, K, bbits, w32),
-                                     dtype=np.uint32)
-        got = match_counts_pallas_packed(
-            pq.transpose(1, 2, 0, 3), pr.transpose(1, 2, 0, 3), w32,
-            g=2, tq=8, tr=16, interpret=True, plane_major=True)
-        want = match_counts_xla(pq, pr, pad_bits)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_kernel_dispatcher_routes_on_choice(self, monkeypatch):
-        """match_counts_device honours POPPUNK_TPU_KERNEL (read at import
-        into KERNEL_CHOICE) and derives w32 from pad_bits."""
-        from poppunk_tpu.ops import pallas_jaccard as pj
-
-        calls = []
-        monkeypatch.setattr(pj, "match_counts_pallas",
-                            lambda *a, **k: calls.append(("std", a, k)))
-        monkeypatch.setattr(pj, "match_counts_pallas_packed",
-                            lambda *a, **k: calls.append(("packed", a, k)))
-        q = np.zeros((2, 3, 5, 128), np.uint32)
-        monkeypatch.setattr(pj, "KERNEL_CHOICE", "standard")
-        pj.match_counts_device(q, q, 64)
-        monkeypatch.setattr(pj, "KERNEL_CHOICE", "packed")
-        pj.match_counts_device(q, q, 64)
-        assert calls[0][0] == "std"
-        assert calls[1][0] == "packed"
-        assert calls[1][1][2] == 128 - 64 // 32  # w32 from pad_bits
-        # plane-major (resident reference) passes must NOT be repacked
-        # per call — they stay on the standard kernel even when packed
-        pj.match_counts_device(q, q, 64, plane_major=True)
-        assert calls[2][0] == "std"
-
-    def test_lane_groups_rejects_oversize_geometry(self):
-        from poppunk_tpu.ops.pallas_jaccard import _lane_groups
-
-        with pytest.raises(ValueError, match="VMEM"):
-            _lane_groups(704, 6, bbits=14, tq=64, tr=256)
-
-    def test_lane_group_selection_production_geometry(self):
-        """At production geometry (w32=312, K=6, P=14) the auto-picker
-        must choose a packing that beats the standard kernel's 81% lane
-        occupancy within the VMEM budget."""
-        from poppunk_tpu.ops.pallas_jaccard import _lane_groups
-
-        g, lanes, kg = _lane_groups(312, 6, bbits=14)
-        occ = (6 * 312) / (kg * lanes)
-        assert occ > 0.9
-        assert kg * g >= 6
+        np.testing.assert_array_equal(
+            np.asarray(got), np.asarray(match_counts_xla(pq, pr, pad_bits)))

@@ -31,6 +31,12 @@ SS64 = 4
 BBITS = 8
 
 
+def _no_matmul_sweep(monkeypatch, scale_mod):
+    """Route every refine sweep past the dense matmul tier."""
+    plan = scale_mod.memory_plan()._replace(matmul_sweep_max_n=0)
+    monkeypatch.setattr(scale_mod, "memory_plan", lambda: plan)
+
+
 @pytest.fixture(scope="module")
 def pop():
     return synthetic_population_device(
@@ -224,7 +230,7 @@ class TestRefineEquivalence:
         # the sparse one to exercise this code path
         import poppunk_tpu.scale as scale_mod
 
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
 
         monkeypatch.setenv("POPPUNK_TPU_SPARSE_SWEEP", "0")
         hx, hy, hs, hsweep = refine_fit_device(src, scale, mean0, mean1,
@@ -276,7 +282,7 @@ class TestAdaptiveCap:
         Xs = host / scale
         mean0 = Xs[Xs[:, 0] < 0.3].mean(axis=0)
         mean1 = Xs[Xs[:, 0] >= 0.3].mean(axis=0)
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
         kw = dict(max_move=0.05, score_idx=0, seed=4, no_local=True,
                   max_sweep_fetch=1)
 
@@ -310,7 +316,7 @@ class TestAdaptiveCap:
         Xs = host / scale
         mean0 = Xs[Xs[:, 0] < 0.3].mean(axis=0)
         mean1 = Xs[Xs[:, 0] >= 0.3].mean(axis=0)
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
         kw = dict(max_move=0.05, score_idx=0, seed=4)
         # uniform pair subsample (>= the estimator's minimum size)
         rng = np.random.default_rng(0)
@@ -339,7 +345,7 @@ class TestAdaptiveCap:
         Xs = host / scale
         mean0 = Xs[Xs[:, 0] < 0.3].mean(axis=0)
         mean1 = Xs[Xs[:, 0] >= 0.3].mean(axis=0)
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
         kw = dict(max_move=0.05, score_idx=0, seed=4)
         rng = np.random.default_rng(0)
         sub = Xs[rng.integers(0, len(Xs), 20000)] * scale
@@ -482,7 +488,7 @@ class TestMeshShardedSweep:
         Xs = host / scale
         mean0 = Xs[Xs[:, 0] < 0.3].mean(axis=0)
         mean1 = Xs[Xs[:, 0] >= 0.3].mean(axis=0)
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
         kw = dict(max_move=0.05, score_idx=0, seed=4)
 
         monkeypatch.setenv("POPPUNK_TPU_SPARSE_SWEEP", "0")
@@ -624,7 +630,7 @@ class TestBootstrap:
         Xs = host / scale
         mean0 = Xs[Xs[:, 0] < 0.3].mean(axis=0)
         mean1 = Xs[Xs[:, 0] >= 0.3].mean(axis=0)
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
         kw = dict(max_move=0.05, score_idx=0, seed=4)
         rng = np.random.default_rng(0)
         sub = Xs[rng.integers(0, len(Xs), 20000)] * scale
@@ -683,7 +689,7 @@ class TestBootstrap:
         Xs = host / scale
         mean0 = Xs[Xs[:, 0] < 0.3].mean(axis=0)
         mean1 = Xs[Xs[:, 0] >= 0.3].mean(axis=0)
-        monkeypatch.setattr(scale_mod, "MATMUL_SWEEP_MAX_N", 0)
+        _no_matmul_sweep(monkeypatch, scale_mod)
         rng = np.random.default_rng(0)
         sub = Xs[rng.integers(0, len(Xs), 20000)] * scale
 
